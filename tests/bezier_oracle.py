@@ -1,6 +1,6 @@
 """Host-side numpy port of the reference's ray-Bezier subdivision
 intersector (bezier.scm:13-214), used ONLY as a test oracle for the
-TPU-native Newton kernel (scheme_raytrace_tpu/ops/bezier.py).
+vectorized Newton kernel (scheme_raytrace/ops/bezier.py).
 
 This is a behavioral port written from the algorithm spec (Nakamaru-Ohno
 recursive ribbon subdivision): world -> ray-space projection with the

@@ -1,6 +1,6 @@
 """Newton bezier kernel vs the reference subdivision algorithm (VERDICT r1
 item 7): the numpy oracle (tests/bezier_oracle.py) ports bezier.scm's
-converge; the TPU kernel must agree on hit classification away from
+converge; the Newton kernel must agree on hit classification away from
 silhouette boundaries and on t wherever both report a hit.
 
 Error budget (documented bound): the subdivision leaf stops at depth
@@ -21,9 +21,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scheme_raytrace_tpu.scene import compile_scene, objects as ob
-from scheme_raytrace_tpu.ops import bezier as bz
-from tests import bezier_oracle as oracle
+from scheme_raytrace.scene import compile_scene, objects as ob
+from scheme_raytrace.ops import bezier as bz
+import bezier_oracle as oracle  # pytest puts tests/ on sys.path
 
 THIN_CP = np.array([[-1.0, 0.0, -1.0], [-0.8, 1.0, 1.0],
                     [0.8, -1.0, 1.0], [1.0, 0.0, -1.0]])

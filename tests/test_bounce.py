@@ -3,8 +3,8 @@
 The fused pool must reproduce the general masked-sweep pool: identical
 RNG streams and estimator, so images agree to f32 op-reordering noise
 (rsqrt-vs-sqrt normalization etc.), with at most rare branch-flip pixels.
-The Pallas megakernel (interpret mode on CPU) must match the plain-jnp
-trace of the same step exactly.
+The Pallas kernel (Triton route, interpret mode on CPU) must match the
+plain-jnp trace of the same step.
 """
 
 import jax
@@ -12,11 +12,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scheme_raytrace_tpu import render as R
-from scheme_raytrace_tpu import scenes
-from scheme_raytrace_tpu.config import RenderConfig
-from scheme_raytrace_tpu.integrator import bounce, pool, pool_fused
-from scheme_raytrace_tpu.scene import compile_scene, objects as ob
+from scheme_raytrace import render as R
+from scheme_raytrace import scenes
+from scheme_raytrace.config import RenderConfig
+from scheme_raytrace.integrator import bounce, pool, pool_fused
+from scheme_raytrace.scene import compile_scene, objects as ob
 
 
 def _render_both(spec, config, sky=None):
@@ -66,7 +66,7 @@ def test_fused_matches_vector_moving_spheres():
 
 
 def test_big_scene_runs_fused_prim_loop():
-    # >32 prims take the in-kernel fori_loop sweep (dynamic SMEM offsets);
+    # >64 prims take the fori_loop sweep (dynamic pk offsets);
     # the fused image must still match the general masked-sweep pool
     spec = scenes.random_scene(seed=3)
     cfg = RenderConfig(nx=8, ny=8, spp=1, max_depth=4, use_pallas=False)
@@ -109,7 +109,7 @@ def test_unsupported_scenes_fall_back():
     scene = compile_scene(scenes.textured_scene().objects, sky="gradient")
     assert not bounce.supported(scene, cfg.replace(traversal="bvh"))
     # atlas beyond IMG_ROWS_MAX -> general pool
-    from scheme_raytrace_tpu.scene import objects as ob
+    from scheme_raytrace.scene import objects as ob
     big = np.zeros((128, 128, 3), np.float32)
     sbig = compile_scene(
         [ob.Sphere((0, 0, -1), 0.5, ob.Lambertian(ob.ImageTexture(big)))],
@@ -132,8 +132,7 @@ def test_unsupported_scenes_fall_back():
 def test_fused_matches_vector_image_texture():
     # image textures in the fused step (texture.scm:36-50; round-5 close
     # of the last feature-class exclusion): chunked lane-gather atlas +
-    # in-kernel sphere UV.  The polynomial _atan2 differs from XLA's by
-    # <=4.1e-8 rad, so texel picks match the general pool except for
+    # in-kernel sphere UV; texel picks match the general pool except for
     # boundary-straddling samples (covered by the outlier allowance).
     f, v, sf, sv = _render_both(scenes.textured_scene(), CFG)
     _assert_close(f, v)
@@ -218,8 +217,8 @@ def test_fused_matches_vector_cornell_bezier():
 
 
 def test_pallas_interpret_matches_jnp_step_image_tex():
-    # the image-texture kernel path (tuple pk with texel atlas, lane-axis
-    # take_along_axis gather, polynomial _atan2 sphere UV) must match the
+    # the image-texture kernel path (tuple pk with the flat texel atlas,
+    # per-channel texel gather, arctan2 sphere UV) must match the
     # plain-jnp trace of the same step in interpret mode
     spec = scenes.textured_scene()
     config = RenderConfig(nx=16, ny=16, spp=1, max_depth=8)

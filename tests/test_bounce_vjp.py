@@ -1,10 +1,11 @@
-"""Custom-VJP Pallas bounce (bounce.as_pallas_vjp): the backward megakernel
+"""Custom-VJP Pallas bounce (bounce.as_pallas_vjp): the backward kernel
 must reproduce jax.vjp of the plain-jnp step (same math, one fused kernel).
 
-Interpret mode on CPU; the real-chip compile is gated separately by
-bounce.mosaic_compiles_vjp and exercised by the bench on TPU.  The fast
-tier uses a small sphere scene (small packed buffer, quick interpret-mode
-compile); the Cornell-scale check is in the slow tier.
+Triton-route kernels in interpret mode on CPU; the compiled kernels are
+checked on the card by tests/test_kernel_route.py's `gpu` tests and by
+chip_smoke.py.  The fast tier uses a small sphere scene (small packed
+buffer, quick interpret-mode compile); the Cornell-scale check is in the
+slow tier.
 """
 
 import jax
@@ -12,10 +13,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scheme_raytrace_tpu import scenes
-from scheme_raytrace_tpu.config import RenderConfig
-from scheme_raytrace_tpu.integrator import bounce
-from scheme_raytrace_tpu.scene import compile_scene, objects as ob
+from scheme_raytrace import scenes
+from scheme_raytrace.config import RenderConfig
+from scheme_raytrace.integrator import bounce
+from scheme_raytrace.scene import compile_scene, objects as ob
 
 
 def _small_spec():
@@ -110,10 +111,10 @@ def test_vjp_kernel_matches_jnp_vjp_cornell():
 def test_vjp_kernel_grad_through_chain():
     # two chained steps under jax.grad: the custom_vjp must compose
     # (residuals = the carry) and produce finite, nonzero pk gradients.
-    # Slow tier: two fwd + two bwd interpret-mode kernel compiles (~60s
-    # on this host); single-step bwd correctness stays in the fast tier
-    # above, and on-chip composition is checked by
-    # tools/check_vjp_grads_tpu.py + the bench's value_and_grad.
+    # Slow tier: two fwd + two bwd interpret-mode kernel compiles;
+    # single-step bwd correctness stays in the fast tier above, and
+    # composition on the card is checked by chip_smoke.py's value_and_grad
+    # steps.
     (plan, pk, gitem, px, py, fresh, alive, depth,
      o, d, time, rad, tp) = _state(_small_spec(), m=128)
     stepfn = bounce.as_pallas_vjp(plan, 128, interpret=True)
@@ -135,10 +136,10 @@ def test_vjp_kernel_grad_through_chain():
 
 
 def test_pallas_interpret_matches_jnp_step_exotic():
-    # media + bezier probes INSIDE the kernel (round 4): the interpret-mode
-    # megakernel must match the jnp trace of the same step.  Small plan
+    # media + bezier probes INSIDE the kernel: the interpret-mode kernel
+    # must match the jnp trace of the same step.  Small plan
     # (one medium, one bezier, one sphere) keeps the compile fast-tier-ok.
-    from scheme_raytrace_tpu.scene import objects as ob
+    from scheme_raytrace.scene import objects as ob
     import numpy as np
 
     cp = np.array([[-1, 0, -2], [-0.3, 1, -2], [0.3, -1, -2], [1, 0, -2]],

@@ -14,12 +14,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scheme_raytrace_tpu import render as R
-from scheme_raytrace_tpu import scenes
-from scheme_raytrace_tpu.config import RenderConfig
-from scheme_raytrace_tpu.ops import sphere as sph_ops
-from scheme_raytrace_tpu.scene import bvh as bvh_mod
-from scheme_raytrace_tpu.scene import compile_scene
+from scheme_raytrace import render as R
+from scheme_raytrace import scenes
+from scheme_raytrace.config import RenderConfig
+from scheme_raytrace.ops import sphere as sph_ops
+from scheme_raytrace.scene import bvh as bvh_mod
+from scheme_raytrace.scene import compile_scene
 
 
 def _random_boxes(n, seed=0):
@@ -134,7 +134,7 @@ def test_mixed_scene_image_identical_brute_vs_bvh():
     """One tree over BOTH analytic groups (spheres + rotated rects): the
     BVH-traversed image must equal the brute-sweep image (ops/traverse.py
     vs the per-group sweeps) on a Cornell box with spheres inside."""
-    from scheme_raytrace_tpu.scene import objects as ob
+    from scheme_raytrace.scene import objects as ob
     spec = scenes.cornell_box()
     objs = list(spec.objects) + [
         ob.Sphere((190, 90, 190), 90, ob.Lambertian((0.7, 0.7, 0.7))),

@@ -4,10 +4,10 @@ import numpy as np
 import pytest
 from jax.experimental import checkify
 
-from scheme_raytrace_tpu import scenes
-from scheme_raytrace_tpu.config import RenderConfig
-from scheme_raytrace_tpu.scene import compile_scene
-from scheme_raytrace_tpu.utils import checked_render_image
+from scheme_raytrace import scenes
+from scheme_raytrace.config import RenderConfig
+from scheme_raytrace.scene import compile_scene
+from scheme_raytrace.utils import checked_render_image
 
 CFG = RenderConfig(nx=8, ny=8, spp=1, max_depth=3)
 

@@ -1,4 +1,4 @@
-"""CLI driver (python -m scheme_raytrace_tpu) — render from the shell with
+"""CLI driver (python -m scheme_raytrace) — render from the shell with
 progressive stats, resume, and PPM output (SURVEY §5.5/§5.6; VERDICT r1
 items 5/9)."""
 
@@ -6,7 +6,7 @@ import os
 
 import numpy as np
 
-from scheme_raytrace_tpu.__main__ import main
+from scheme_raytrace.__main__ import main
 
 
 def test_cli_scenes_lists(capsys):

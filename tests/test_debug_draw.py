@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from scheme_raytrace_tpu.utils import debug_draw
+from scheme_raytrace.utils import debug_draw
 
 
 # the reference's *bez* test curve (main.scm:575-581), frame-scale coords

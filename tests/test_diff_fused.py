@@ -6,12 +6,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scheme_raytrace_tpu import render as R
-from scheme_raytrace_tpu import scenes
-from scheme_raytrace_tpu.config import RenderConfig
-from scheme_raytrace_tpu.integrator import diff_fused
-from scheme_raytrace_tpu.scene import build as sb
-from scheme_raytrace_tpu.scene import compile_scene
+from scheme_raytrace import render as R
+from scheme_raytrace import scenes
+from scheme_raytrace.config import RenderConfig
+from scheme_raytrace.integrator import diff_fused
+from scheme_raytrace.scene import build as sb
+from scheme_raytrace.scene import compile_scene
 
 CFG = RenderConfig(nx=16, ny=16, spp=3, max_depth=12, light_sampling=True,
                    pool_rays=256)
@@ -91,23 +91,6 @@ def test_grad_matches_fd():
                / (2 * eps))
     assert np.isfinite(ad) and abs(ad - fd) < 0.05 * max(abs(fd), 1e-3), (
         ad, fd)
-
-
-@pytest.mark.slow
-def test_strided_scan_mode_matches_forward():
-    # pool_strided's fixed-length scan variant (reverse-mode-capable):
-    # image equals its own while_loop drain bitwise when the queue drains
-    from scheme_raytrace_tpu.integrator import pool_strided
-    scene, cam = _cornell()
-    raw0 = jnp.zeros((CFG.n_pixels, 3), jnp.float32)
-    raw_w, seg_w, iters = pool_strided.render_pool_strided(
-        scene, cam, CFG, raw0, 0)
-    n_iters = int(int(iters) * 1.3) + 8
-    raw_s, seg_s, leftover = pool_strided.render_pool_strided(
-        scene, cam, CFG, raw0, 0, static_iters=n_iters)
-    assert int(leftover) == 0
-    assert int(seg_s) == int(seg_w)
-    np.testing.assert_array_equal(np.asarray(raw_s), np.asarray(raw_w))
 
 
 @pytest.mark.parametrize("scene_name", [

@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from scheme_raytrace_tpu import render as R
-from scheme_raytrace_tpu.camera import make_camera
-from scheme_raytrace_tpu.config import RenderConfig
-from scheme_raytrace_tpu.scene import build as sb
-from scheme_raytrace_tpu.scene import compile_scene, objects as ob
+from scheme_raytrace import render as R
+from scheme_raytrace.camera import make_camera
+from scheme_raytrace.config import RenderConfig
+from scheme_raytrace.scene import build as sb
+from scheme_raytrace.scene import compile_scene, objects as ob
 
 CFG = RenderConfig(nx=8, ny=8, spp=1, max_depth=3, differentiable=True)
 
@@ -124,7 +124,7 @@ def test_bezier_hit_t_gradient_matches_fd():
     # root (ops/bezier.py): AD must match central FD tightly — this is the
     # kernel-level gradient-correctness claim, independent of the chaotic
     # render-level integrands the parity harness averages over.
-    from scheme_raytrace_tpu.ops import bezier as bz
+    from scheme_raytrace.ops import bezier as bz
     import dataclasses
 
     cp0 = np.array([[-1, 0, -1], [-0.8, 1, 1], [0.8, -1, 1], [1, 0, -1]],
@@ -172,7 +172,7 @@ def test_no_nan_grads_shading_point_inside_sphere_light():
 def test_no_nan_grads_on_full_cornell():
     # The NaN-hygiene test: every masked-out lane (sqrt of negative
     # discriminants etc.) must stay NaN-free under reverse-mode.
-    from scheme_raytrace_tpu import scenes as sc_mod
+    from scheme_raytrace import scenes as sc_mod
     spec = sc_mod.cornell_box()
     scene = compile_scene(spec.objects, sky=spec.sky)
     cam = spec.camera(aspect=1.0)
@@ -192,7 +192,7 @@ def test_no_nan_grads_on_cornell_klein_wavefront():
     # leaf (kl_center, rect_k, rect_flip...) through the masked selects.
     # ops/klein.intersect now marches under stop_gradient and attaches
     # the implicit-function t at the root, the fused kernel's convention.
-    from scheme_raytrace_tpu import scenes as sc_mod
+    from scheme_raytrace import scenes as sc_mod
     spec = sc_mod.cornell_klein()
     scene = compile_scene(spec.objects, sky=spec.sky)
     cam = spec.camera(aspect=1.0)

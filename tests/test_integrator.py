@@ -14,10 +14,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from scheme_raytrace_tpu.config import RenderConfig
-from scheme_raytrace_tpu.core import vecmath as vm
-from scheme_raytrace_tpu.integrator.wavefront import trace_rays, trace_rays_full
-from scheme_raytrace_tpu.scene import compile_scene, objects as ob
+from scheme_raytrace.config import RenderConfig
+from scheme_raytrace.core import vecmath as vm
+from scheme_raytrace.integrator.wavefront import trace_rays, trace_rays_full
+from scheme_raytrace.scene import compile_scene, objects as ob
 
 
 def _trace(objs, o, d, sky="black", key=0, **cfg):

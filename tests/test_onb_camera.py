@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from scheme_raytrace_tpu import camera as cam_mod
-from scheme_raytrace_tpu.core import vecmath as vm
-from scheme_raytrace_tpu.ops import onb
+from scheme_raytrace import camera as cam_mod
+from scheme_raytrace.core import vecmath as vm
+from scheme_raytrace.ops import onb
 
 
 def test_onb_orthonormal():

@@ -6,13 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scheme_raytrace_tpu import render as R
-from scheme_raytrace_tpu import scenes
-from scheme_raytrace_tpu.camera import make_camera
-from scheme_raytrace_tpu.config import RenderConfig
-from scheme_raytrace_tpu.parallel import make_mesh, render_sharded, train_step
-from scheme_raytrace_tpu.scene import build as sb
-from scheme_raytrace_tpu.scene import compile_scene, objects as ob
+from scheme_raytrace import render as R
+from scheme_raytrace import scenes
+from scheme_raytrace.camera import make_camera
+from scheme_raytrace.config import RenderConfig
+from scheme_raytrace.parallel import make_mesh, render_sharded, train_step
+from scheme_raytrace.scene import build as sb
+from scheme_raytrace.scene import compile_scene, objects as ob
 
 CFG = RenderConfig(nx=16, ny=16, spp=2, max_depth=4)
 
@@ -63,7 +63,7 @@ def test_sharded_pool_bit_identical_to_unsharded():
     # The regeneration pool keys RNG by GLOBAL (pass, pixel) work-item ids
     # and flushes per pixel in pass-major order, so the sharded pool render
     # must equal the unsharded one BITWISE (parallel/pool.py contract).
-    from scheme_raytrace_tpu.parallel.pool import render_pool_sharded
+    from scheme_raytrace.parallel.pool import render_pool_sharded
     spec = scenes.cornell_box()
     scene = compile_scene(spec.objects, sky=spec.sky)
     cam = spec.camera(aspect=1.0)
@@ -116,7 +116,7 @@ def test_psum_gradients_match_single_device():
     # (numerically) the single-device gradient of the SAME loss — built here
     # unsharded from the same per-shard estimator (_pass_rows with explicit
     # shard ids), so the only difference is the psum reduction itself.
-    from scheme_raytrace_tpu.parallel.render import _pass_rows
+    from scheme_raytrace.parallel.render import _pass_rows
     objs = [ob.Sphere((0, 0, -3), 2.0, ob.Lambertian((0.4, 0.5, 0.6)))]
     cam = make_camera((0, 0, 0), (0, 0, -1), vfov=30.0, aspect=1.0)
     # 4-device mesh + spp1: the unsharded reference builds all shards'
@@ -167,8 +167,8 @@ def _fused_train_vs_single(dtype_str, grad_rtol, grad_atol_scale):
     # f32 run carries a loose bound (near-grazing sphere hits produce
     # large canceling d(t)/d(center) terms) and the f64 run a tight one
     # (measured 1e-12 — proves the psum machinery is exactly right).
-    from scheme_raytrace_tpu.integrator import diff_fused
-    from scheme_raytrace_tpu.parallel import (train_step_fused,
+    from scheme_raytrace.integrator import diff_fused
+    from scheme_raytrace.parallel import (train_step_fused,
                                               calibrate_iters_sharded)
 
     f64 = dtype_str == "f64"
@@ -229,8 +229,8 @@ def test_balanced_pool_matches_unsharded():
     # Interleaved work sharding + framebuffer psum (render_pool_balanced):
     # the union of shard sample sets is the EXACT unsharded sample set, so
     # segments match exactly and the image to f32 summation-order noise.
-    from scheme_raytrace_tpu.parallel import render_pool_balanced
-    from scheme_raytrace_tpu.integrator import pool as pool_mod
+    from scheme_raytrace.parallel import render_pool_balanced
+    from scheme_raytrace.integrator import pool as pool_mod
 
     scene, cam = _scene()
     cfg = CFG.replace(spp=2, pool_rays=128)
@@ -253,8 +253,8 @@ def test_balanced_pool_balances_per_shard_work():
     # construction.  Measured directly on the per-shard segment counters.
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
-    from scheme_raytrace_tpu.integrator import pool_fused
-    from scheme_raytrace_tpu.parallel.mesh import RAY_AXIS
+    from scheme_raytrace.integrator import pool_fused
+    from scheme_raytrace.parallel.mesh import RAY_AXIS
 
     objs = [ob.Sphere((0, -100.5, -2), 100, ob.Lambertian((0.6, 0.6, 0.6))),
             ob.Sphere((0, -0.2, -2), 0.6, ob.Lambertian((0.7, 0.4, 0.3))),

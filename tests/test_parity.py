@@ -2,7 +2,7 @@
 goldens at the 5 BASELINE.json configs (VERDICT r1 item 4).
 
 Goldens are produced by `JAX_ENABLE_X64=1 python tools/make_goldens.py`
-(see scheme_raytrace_tpu/parity.py for the oracle definition).  Tolerances:
+(see scheme_raytrace/parity.py for the oracle definition).  Tolerances:
 the f32 render consumes the SAME counter-hash sample decisions as the f64
 oracle (core/rng.hash_uniforms is integer-exact; _to_unit differs only in
 the final float cast), so images agree to f32 accumulation error except on
@@ -21,7 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scheme_raytrace_tpu import parity
+from scheme_raytrace import parity
 
 GOLDENS = {
     pc.name: os.path.join(os.path.dirname(__file__), "goldens",

@@ -9,10 +9,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from scheme_raytrace_tpu.core import vecmath as vm
-from scheme_raytrace_tpu.integrator import pdfs
-from scheme_raytrace_tpu.ops import sampling
-from scheme_raytrace_tpu.scene import compile_scene, objects as ob
+from scheme_raytrace.core import vecmath as vm
+from scheme_raytrace.integrator import pdfs
+from scheme_raytrace.ops import sampling
+from scheme_raytrace.scene import compile_scene, objects as ob
 
 N = 100_000
 

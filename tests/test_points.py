@@ -6,12 +6,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from scheme_raytrace_tpu import points as pts
-from scheme_raytrace_tpu import render as R
-from scheme_raytrace_tpu import scenes
-from scheme_raytrace_tpu.config import RenderConfig
-from scheme_raytrace_tpu.ops import bezier as bz
-from scheme_raytrace_tpu.scene import compile_scene, objects as ob
+from scheme_raytrace import points as pts
+from scheme_raytrace import render as R
+from scheme_raytrace import scenes
+from scheme_raytrace.config import RenderConfig
+from scheme_raytrace.ops import bezier as bz
+from scheme_raytrace.scene import compile_scene, objects as ob
 
 
 def test_load_points_csv(tmp_path):

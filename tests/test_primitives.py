@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from scheme_raytrace_tpu import config as cfg
-from scheme_raytrace_tpu.core import vecmath as vm
-from scheme_raytrace_tpu.ops import sphere, rect, bezier, klein, aabb
-from scheme_raytrace_tpu.scene import compile_scene
-from scheme_raytrace_tpu.scene import objects as ob
+from scheme_raytrace import config as cfg
+from scheme_raytrace.core import vecmath as vm
+from scheme_raytrace.ops import sphere, rect, bezier, klein, aabb
+from scheme_raytrace.scene import compile_scene
+from scheme_raytrace.scene import objects as ob
 
 MAT = ob.Lambertian((0.5, 0.5, 0.5))
 

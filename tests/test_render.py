@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from scheme_raytrace_tpu import render as R
-from scheme_raytrace_tpu import scenes
-from scheme_raytrace_tpu.config import RenderConfig
-from scheme_raytrace_tpu.scene import compile_scene
+from scheme_raytrace import render as R
+from scheme_raytrace import scenes
+from scheme_raytrace.config import RenderConfig
+from scheme_raytrace.scene import compile_scene
 
 CFG = RenderConfig(nx=8, ny=8, spp=2, max_depth=4)
 
@@ -121,12 +121,12 @@ def test_render_image_mean():
 
 
 def test_banded_render_bit_identical():
-    # Large frames render as sequential row-band pool drains (the flush
-    # scatter's cost scales with its operand size on TPU — pool.BAND_PIX).
+    # Large frames render as sequential row-band pool drains
+    # (pool.BAND_PIX).
     # Band-major issue order must be BIT-identical to frame-major: RNG is
     # keyed by global (pass, pixel) ids and per-pixel accumulation stays
     # pass-major.  Forced here by shrinking the threshold.
-    from scheme_raytrace_tpu.integrator import pool as pool_mod
+    from scheme_raytrace.integrator import pool as pool_mod
 
     spec = scenes.cornell_box()
     scene = compile_scene(spec.objects, sky=spec.sky)
@@ -157,7 +157,7 @@ def test_material_sorted_shading_bit_identical():
     # so a lane permutation commutes with it exactly.  test_scene mixes
     # lambertian/checker/metal/dielectric (main.scm:155-174), so the sort
     # is a real permutation every bounce.
-    from scheme_raytrace_tpu.integrator import pool as pool_mod
+    from scheme_raytrace.integrator import pool as pool_mod
 
     spec = scenes.test_scene()
     scene = compile_scene(spec.objects, sky="gradient")  # light the materials
@@ -184,7 +184,7 @@ def test_pixel_group_pool_bit_identical_and_routed():
     # K-invariant, so the K=4 pool must render BIT-identically to K=1.
     # Also pins the routing heuristic (choose_group): K>1 only with >= 2
     # items/lane, stride 1, and no march-heavy prims (klein/bezier).
-    from scheme_raytrace_tpu.integrator import bounce, pool_fused
+    from scheme_raytrace.integrator import bounce, pool_fused
 
     spec = scenes.cornell_box()
     scene = compile_scene(spec.objects, sky=spec.sky)
@@ -223,7 +223,7 @@ def test_pool_auto_sizing():
     assert cfg.resolve_pool_rays(reverse=True) == 24 * 1024
     assert cfg.replace(pool_rays=4096).resolve_pool_rays(reverse=True) == 4096
     # small frame: m clamps to the (grouped) work size, not the cap
-    from scheme_raytrace_tpu.integrator import bounce, pool_fused
+    from scheme_raytrace.integrator import bounce, pool_fused
     spec = scenes.cornell_box()
     scene = compile_scene(spec.objects, sky=spec.sky)
     cam = spec.camera(aspect=1.0)

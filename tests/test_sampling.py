@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from scheme_raytrace_tpu.core import vecmath as vm
-from scheme_raytrace_tpu.ops import sampling
+from scheme_raytrace.core import vecmath as vm
+from scheme_raytrace.ops import sampling
 
 N = 200_000
 

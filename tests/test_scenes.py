@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from scheme_raytrace_tpu import render as R
-from scheme_raytrace_tpu import scenes
-from scheme_raytrace_tpu.config import RenderConfig
-from scheme_raytrace_tpu.scene import compile_scene
+from scheme_raytrace import render as R
+from scheme_raytrace import scenes
+from scheme_raytrace.config import RenderConfig
+from scheme_raytrace.scene import compile_scene
 
 CFG = RenderConfig(nx=16, ny=16, spp=1, max_depth=8)
 

@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from scheme_raytrace_tpu.ops import texture
-from scheme_raytrace_tpu.scene import compile_scene, objects as ob
-from scheme_raytrace_tpu.scene import perlin
+from scheme_raytrace.ops import texture
+from scheme_raytrace.scene import compile_scene, objects as ob
+from scheme_raytrace.scene import perlin
 
 
 def _eval(scene, tex_id, p):

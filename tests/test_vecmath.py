@@ -4,7 +4,7 @@ material.scm:41-74)."""
 import jax.numpy as jnp
 import numpy as np
 
-from scheme_raytrace_tpu.core import vecmath as vm
+from scheme_raytrace.core import vecmath as vm
 
 
 def test_vec3_stack_and_accessors():

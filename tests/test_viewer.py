@@ -11,10 +11,10 @@ import urllib.request
 
 import numpy as np
 
-from scheme_raytrace_tpu import scenes
-from scheme_raytrace_tpu.config import RenderConfig
-from scheme_raytrace_tpu.scene import compile_scene
-from scheme_raytrace_tpu.viewer import Viewer, png_encode
+from scheme_raytrace import scenes
+from scheme_raytrace.config import RenderConfig
+from scheme_raytrace.scene import compile_scene
+from scheme_raytrace.viewer import Viewer, png_encode
 
 
 def test_png_encode_roundtrip():
@@ -53,7 +53,7 @@ def test_viewer_end_to_end(tmp_path):
 
     try:
         # page + endpoints serve before any pass completes
-        assert b"scheme_raytrace_tpu" in get("/")
+        assert b"scheme_raytrace" in get("/")
         assert json.loads(get("/status"))["samples"] == 0
 
         # 'z' toggle flips the paused flag both ways

@@ -3,8 +3,8 @@
 Measures forward rays/s on N-sphere grids (N = 256 / 1k / 4k / 16k) for:
   * the fused pool's brute sweep (Pallas in-kernel fori at these sizes),
   * the general pool's flat threaded SAH-BVH traversal,
-on the current backend.  Results feed the routing policy in
-integrator/pool.render_pool_auto and docs/PERF_NOTES.md.
+on the GPU.  Results feed the routing policy in
+integrator/pool.render_pool_auto and PERF.md.
 
 Run: python tools/bench_bvh_crossover.py [N ...]
 """
@@ -17,10 +17,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import numpy as np
 
-from scheme_raytrace_tpu import render as R
-from scheme_raytrace_tpu import scenes
-from scheme_raytrace_tpu.config import RenderConfig
-from scheme_raytrace_tpu.scene import compile_scene, objects as ob
+from scheme_raytrace import render as R
+from scheme_raytrace import scenes
+from scheme_raytrace.config import RenderConfig
+from scheme_raytrace.scene import compile_scene, objects as ob
 
 
 def grid_scene(n, bvh=None):
@@ -57,9 +57,12 @@ def bench(scene, cam, config):
 
 if __name__ == "__main__":
     sizes = [int(x) for x in sys.argv[1:]] or [256, 1024, 4096, 16384]
-    is_tpu = jax.devices()[0].platform != "cpu"
-    res = 256 if is_tpu else 32
-    from scheme_raytrace_tpu.integrator import pool_fused
+    from scheme_raytrace.utils import smoke
+    rep = smoke.device_report()
+    print(f"{rep} card: {smoke.nvidia_smi()}", flush=True)
+    smoke.require_gpu(rep)
+    res = 256
+    from scheme_raytrace.integrator import pool_fused
     for n in sizes:
         cfg = RenderConfig(nx=res, ny=res, spp=4, max_depth=8,
                            pool_rays=48 * 1024, seed=0)

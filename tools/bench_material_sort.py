@@ -10,9 +10,9 @@ two scenes where sorting has the most to gain:
   * RTOW-final (random_scene, main.scm:31-89): 3 kinds over ~500 prims.
 
 Both A and B run the GENERAL pool (material_sort routes away from the
-fused Pallas path, which sorts nothing), so the diff isolates the
+fused path, which sorts nothing), so the diff isolates the
 sort + two gathers against any locality win in shade().  Results feed
-docs/PERF_NOTES.md and the default in config.py.
+PERF.md and the default in config.py.
 
 Run: python tools/bench_material_sort.py
 """
@@ -25,10 +25,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-from scheme_raytrace_tpu import scenes
-from scheme_raytrace_tpu.config import RenderConfig
-from scheme_raytrace_tpu.integrator import pool as pool_mod
-from scheme_raytrace_tpu.scene import compile_scene
+from scheme_raytrace import scenes
+from scheme_raytrace.config import RenderConfig
+from scheme_raytrace.integrator import pool as pool_mod
+from scheme_raytrace.scene import compile_scene
 
 
 def bench(scene, cam, config):
@@ -46,8 +46,11 @@ def bench(scene, cam, config):
 
 
 if __name__ == "__main__":
-    is_tpu = jax.devices()[0].platform != "cpu"
-    res = 256 if is_tpu else 32
+    from scheme_raytrace.utils import smoke
+    rep = smoke.device_report()
+    print(f"{rep} card: {smoke.nvidia_smi()}", flush=True)
+    smoke.require_gpu(rep)
+    res = 256
     cfg = RenderConfig(nx=res, ny=res, spp=4, max_depth=8,
                        pool_rays=48 * 1024, seed=0)
     for name, spec_fn, sky in [("test_scene", scenes.test_scene, "gradient"),

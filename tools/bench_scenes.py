@@ -1,7 +1,8 @@
 """Per-scene forward rays/s on the current backend (fused-path coverage).
 
-Run `python tools/bench_scenes.py [scene ...]`; prints one line per scene
-with the executed step impl (pallas vs jnp fallback via the lowering gate).
+Run `python tools/bench_scenes.py [scene ...]` on a GPU; prints one line
+per scene with the executed step impl (pallas kernel, or general-pool for
+scenes outside the fused step), with the card's name and power limit.
 """
 import os
 import sys
@@ -11,11 +12,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-from scheme_raytrace_tpu import scenes
-from scheme_raytrace_tpu import render as R
-from scheme_raytrace_tpu.config import RenderConfig
-from scheme_raytrace_tpu.integrator import pool_fused
-from scheme_raytrace_tpu.scene import compile_scene
+from scheme_raytrace import scenes
+from scheme_raytrace import render as R
+from scheme_raytrace.config import RenderConfig
+from scheme_raytrace.integrator import pool_fused
+from scheme_raytrace.scene import compile_scene
 
 DEFAULT = ["cornell", "cornell_smoke", "klein", "cornell_klein",
            "bezier", "cornell_bezier"]
@@ -44,10 +45,11 @@ def bench_one(name, size=512, spp=8):
 
 
 if __name__ == "__main__":
+    from scheme_raytrace.utils import smoke
+    rep = smoke.device_report()
+    print(f"{rep} card: {smoke.nvidia_smi()}", flush=True)
+    smoke.require_gpu(rep)
     names = sys.argv[1:] or DEFAULT
     for n in names:
         pool_fused.LAST_STEP_IMPL.clear()
-        try:
-            bench_one(n)
-        except Exception as e:  # noqa: BLE001
-            print(f"{n:18s} FAILED: {type(e).__name__}: {e}", flush=True)
+        bench_one(n)
