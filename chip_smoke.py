@@ -33,6 +33,7 @@ import time
 PHASES = ("device", "kernels", "parity", "main")
 OUT_DIR = "smoke_out"    # the main phase's PPMs (listed in .gitignore)
 FRAME = 512     # frame edge of the main-path workloads (1024^2 = 2 x FRAME)
+M_FWD = 65536   # lanes of the forward kernel comparison (the pool's size)
 
 
 def log(*a):
@@ -67,9 +68,12 @@ def _timed(fn, *args, reps=5):
 def _compile(jitted, *args):
     """AOT-compile: (compiled, seconds, memory_analysis text)."""
     t0 = time.perf_counter()
-    compiled = jitted.lower(*args).compile()
-    dt = time.perf_counter() - t0
-    return compiled, dt, _mem_text(compiled)
+    return _finish_compile(jitted.lower(*args), t0)
+
+
+def _finish_compile(lowered, t0):
+    compiled = lowered.compile()
+    return compiled, time.perf_counter() - t0, _mem_text(compiled)
 
 
 def _mem_text(compiled):
@@ -131,7 +135,7 @@ def phase_kernels(card):
     from scheme_raytrace.scene import compile_scene
     from scheme_raytrace.utils import smoke
 
-    m_fwd = 65536
+    m_fwd = M_FWD
     m_bwd = RenderConfig().resolve_pool_rays(reverse=True)
     log(f"[kernels] precision: f32 step, jax_default_matmul_precision="
         f"{jax.config.jax_default_matmul_precision}; tolerance rtol="
@@ -141,7 +145,8 @@ def phase_kernels(card):
     for name, spec, ls, lo, hi in [
             ("cornell_ls", scenes.cornell_box(), True, 0.0, 555.0),
             ("rtow_final", scenes.random_scene(seed=0), False, -12.0, 12.0),
-            ("exotic", smoke.exotic_scene(), False, -1.0, 1.0)]:
+            ("exotic", smoke.exotic_scene(), False, -1.0, 1.0),
+            ("at_bounds", smoke.bounds_scene(), False, -2.5, 2.5)]:
         scene = compile_scene(spec.objects, sky=spec.sky)
         config = RenderConfig(nx=512, ny=512, spp=16, max_depth=100,
                               light_sampling=ls)
@@ -149,8 +154,9 @@ def phase_kernels(card):
         pk = bounce.pack(scene, spec.camera(aspect=1.0), plan, jnp.float32)
         cases.append((name, plan, pk, lo, hi))
 
-    # the backward kernel's compile takes minutes: it runs in the
-    # background while the forward kernels are compared
+    # set-up: the backward kernel's compile takes minutes, so it runs in
+    # the background while the forward programs compile; nothing is timed
+    # until every compile has finished
     pool = cf.ThreadPoolExecutor(2)
     bwd = {}
     for name, plan, pk, lo, hi in cases:
@@ -158,33 +164,38 @@ def phase_kernels(card):
             f_got, f_ref, args = _bwd_case(plan, pk, m_bwd, lo, hi)
             bwd[name] = (pool.submit(_compile, f_got, *args),
                          pool.submit(_compile, f_ref, *args), args)
-
+    fwd = []
     for name, plan, pk, lo, hi in cases:
         lanes = smoke.random_lanes(m_fwd, 1, lo, hi, 512, 512)
         kern = bounce.as_pallas(plan, m_fwd)
         f_ref = jax.jit(lambda pk, *a, plan=plan: bounce.step(plan, pk, *a))
         f_got = jax.jit(lambda pk, *a, plan=plan, kern=kern:
                         kern(plan, pk, *a))
-        c_ref, s_ref, mem_ref = _compile(f_ref, pk, *lanes)
-        c_got, s_got, mem_got = _compile(f_got, pk, *lanes)
-        t_ref, ref = _timed(c_ref, pk, *lanes)
-        t_got, got = _timed(c_got, pk, *lanes)
+        fwd.append((name, plan, (pk, *lanes), _compile(f_ref, pk, *lanes),
+                    _compile(f_got, pk, *lanes)))
+    bwd = {name: (got_f.result(), ref_f.result(), args)
+           for name, (got_f, ref_f, args) in bwd.items()}
+    pool.shutdown()
+
+    for name, plan, args, (c_ref, s_ref, mem_ref), (c_got, s_got, mem_got) \
+            in fwd:
+        t_ref, ref = _timed(c_ref, *args)
+        t_got, got = _timed(c_got, *args)
         res = smoke.compare_step(ref, got)
         log(f"[kernels] fwd {name} m={m_fwd} prims(rects={plan.n_rects} "
             f"spheres={plan.n_spheres} media={plan.n_media} "
             f"kleins={plan.n_kleins} beziers={plan.n_beziers}): {res}")
         log(f"[kernels] fwd {name} one step: kernel {t_got * 1e3:.3f} ms "
-            f"(compile {s_got:.1f}s; {mem_got}) | jnp {t_ref * 1e3:.3f} ms "
-            f"(compile {s_ref:.1f}s; {mem_ref})")
+            f"(compile {s_got:.1f}s, overlapped; {mem_got}) | jnp "
+            f"{t_ref * 1e3:.3f} ms (compile {s_ref:.1f}s, overlapped; "
+            f"{mem_ref})")
 
     for name, plan, pk, lo, hi in cases:
         if name not in bwd:
             log(f"[kernels] bwd {name}: not covered by the custom-VJP "
                 "kernel; the reverse pool runs the checkpointed jnp step")
             continue
-        got_f, ref_f, args = bwd[name]
-        (c_got, s_got, mem_got), (c_ref, s_ref, mem_ref) = (
-            got_f.result(), ref_f.result())
+        (c_got, s_got, mem_got), (c_ref, s_ref, mem_ref), args = bwd[name]
         t_ref, (_, g_ref) = _timed(c_ref, *args)
         t_got, (_, g_got) = _timed(c_got, *args)
         res = smoke.compare_tree(g_ref, g_got)
@@ -194,7 +205,6 @@ def phase_kernels(card):
             f"{t_got * 1e3:.3f} ms (compile {s_got:.1f}s, overlapped; "
             f"{mem_got}) | jnp {t_ref * 1e3:.3f} ms (compile {s_ref:.1f}s, "
             f"overlapped; {mem_ref})")
-    pool.shutdown()
 
 
 # --------------------------------------------------------------------------
@@ -227,38 +237,43 @@ def phase_parity(card):
 # --------------------------------------------------------------------------
 
 
-def _forward(label, scene, cam, config, card, physical=False):
-    """Library entry point render.render_with_stats: compile as set-up,
-    then three chained progressive chunks, each ended by
-    block_until_ready."""
+def _forward(label, scene, cam, config, physical=False):
+    """Library entry point render.render_with_stats.  Compiles now (set-up)
+    and returns run(card), which times three chained progressive chunks,
+    each ended by block_until_ready."""
     import jax
     import numpy as np
     from scheme_raytrace import render as R
     from scheme_raytrace.integrator import pool_fused
     from scheme_raytrace.utils import smoke
 
-    st = R.init_state(config)
+    st0 = R.init_state(config)
     compiled, s_compile, mem = _compile(R.render_with_stats, scene, cam,
-                                        config, st)
-    rates = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        st, seg, iters = compiled(scene, cam, st)
-        jax.block_until_ready(st.raw_sum)
-        dt = time.perf_counter() - t0
-        rates.append((int(seg), dt))
-    seg, dt = sorted(rates, key=lambda r: r[1])[1]
-    mean = np.asarray(st.raw_sum) / int(st.sample_count)
-    assert np.isfinite(mean).all() and mean.max() > 0, f"{label}: bad frame"
-    log(f"[main] {label}: {config.nx}x{config.ny} spp{config.spp} "
-        f"depth{config.max_depth} step={pool_fused.LAST_STEP_IMPL.get('forward')}"
-        f" segments={seg} iters={int(iters)} median {dt * 1e3:.1f} ms -> "
-        f"{seg / dt / 1e6:.2f}M rays/s on {card}; times_ms="
-        f"{[round(t * 1e3, 1) for _, t in rates]}; compile {s_compile:.1f}s; "
-        f"{mem}; peak_bytes_in_use={_peak_bytes()}")
-    if physical:
-        log(f"[main] {label} physical check: {smoke.cornell_physical(mean)}")
-    return st
+                                        config, st0)
+    step = pool_fused.LAST_STEP_IMPL.get("forward")
+
+    def run(card):
+        st, rates = st0, []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            st, seg, iters = compiled(scene, cam, st)
+            jax.block_until_ready(st.raw_sum)
+            dt = time.perf_counter() - t0
+            rates.append((int(seg), dt))
+        seg, dt = sorted(rates, key=lambda r: r[1])[1]
+        mean = np.asarray(st.raw_sum) / int(st.sample_count)
+        assert np.isfinite(mean).all() and mean.max() > 0, f"{label}: bad frame"
+        log(f"[main] {label}: {config.nx}x{config.ny} spp{config.spp} "
+            f"depth{config.max_depth} step={step} segments={seg} "
+            f"iters={int(iters)} median {dt * 1e3:.1f} ms -> "
+            f"{seg / dt / 1e6:.2f}M rays/s on {card}; times_ms="
+            f"{[round(t * 1e3, 1) for _, t in rates]}; compile "
+            f"{s_compile:.1f}s (overlapped with the fwd+bwd compile); {mem}; "
+            f"peak_bytes_in_use={_peak_bytes()}")
+        if physical:
+            log(f"[main] {label} physical check: "
+                f"{smoke.cornell_physical(mean)}")
+    return run
 
 
 # train_step_fused runs on a small scene at full frame: its custom-VJP
@@ -267,9 +282,12 @@ def _forward(label, scene, cam, config, card, physical=False):
 TRAIN_CASE = "three_spheres {0}x{0} spp4 depth100"
 
 
-def _train_fused(mesh, steps=3):
+def _train_fused(mesh):
     """Chained train_step_fused SGD steps toward a scaled-down render of
-    the scene itself: (new params, last loss, n_iters, step seconds)."""
+    the scene itself.  Set-up now: the target render, calibration and the
+    first step, which compiles.  Returns (set-up seconds, more), where
+    more(n) takes n further timed steps and returns (params, last loss,
+    n_iters, step seconds)."""
     import jax
     import numpy as np
     from scheme_raytrace import render as R
@@ -280,6 +298,7 @@ def _train_fused(mesh, steps=3):
     from scheme_raytrace.scene import build as sb
     from scheme_raytrace.scene import compile_scene
 
+    t0 = time.perf_counter()
     spec = scenes.three_spheres()
     scene = compile_scene(spec.objects, sky=spec.sky)
     cam = spec.camera(aspect=1.0)
@@ -288,28 +307,37 @@ def _train_fused(mesh, steps=3):
     target = 0.9 * mean
     n_iters = calibrate_iters_sharded(scene, cam, config, mesh)
     params, rest = sb.partition(scene)
-    times = []
-    for k in range(steps):
-        t0 = time.perf_counter()
+
+    def one():
+        nonlocal params
         params, loss, leftover = train_step_fused(params, rest, cam, config,
                                                   target, mesh, n_iters)
         jax.block_until_ready(params)
-        times.append(time.perf_counter() - t0)
-        assert int(leftover) == 0, (k, int(leftover))
-        assert np.isfinite(float(loss)), (k, float(loss))
+        assert int(leftover) == 0, int(leftover)
+        assert np.isfinite(float(loss)), float(loss)
         assert all(np.isfinite(np.asarray(p)).all()
-                   for p in jax.tree.leaves(params)), k
-    return params, float(loss), n_iters, times
+                   for p in jax.tree.leaves(params))
+        return float(loss)
+
+    one()
+    setup = time.perf_counter() - t0
+
+    def more(n):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            loss = one()
+            times.append(time.perf_counter() - t0)
+        return params, loss, n_iters, times
+    return setup, more
 
 
-def _fwd_bwd(card, during):
-    """Cornell fwd+bwd SGD steps through diff_fused; `during()` runs while
-    the value_and_grad program compiles in the background."""
+def _fwd_bwd_setup():
+    """Cornell fwd+bwd SGD steps through diff_fused: (jitted value_and_grad
+    step, params, scene, cam, config), after calibration."""
     import jax
     import jax.numpy as jnp
-    import numpy as np
-    from scheme_raytrace import render as R
-    from scheme_raytrace.integrator import diff_fused, pool_fused
+    from scheme_raytrace.integrator import diff_fused
     from scheme_raytrace.scene import build as sb
 
     scene, cam, config = _cornell(FRAME, FRAME, 8)
@@ -325,12 +353,16 @@ def _fwd_bwd(card, during):
                                                            n_iters)
         return jnp.sum(raw ** 2) / raw.size, (segs, leftover, raw)
 
-    step = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
-    import concurrent.futures as cf
-    with cf.ThreadPoolExecutor(1) as pool:
-        fut = pool.submit(_compile, step, params)
-        during()
-        compiled, s_compile, mem = fut.result()
+    return (jax.jit(jax.value_and_grad(loss_fn, has_aux=True)), params,
+            scene, cam, config)
+
+
+def _fwd_bwd_run(card, impl, compiled, s_compile, mem, params, scene, cam,
+                 config):
+    import jax
+    import numpy as np
+    from scheme_raytrace import render as R
+
     times = []
     raw_scan = None
     for k in range(4):
@@ -350,11 +382,11 @@ def _fwd_bwd(card, during):
     dt = sorted(times[1:])[1]
     log(f"[main] fwd+bwd value_and_grad Cornell {config.nx}x{config.ny} "
         f"spp{config.spp} depth{config.max_depth} "
-        f"step={pool_fused.LAST_STEP_IMPL.get('reverse')} segments="
+        f"step={impl} segments="
         f"{int(segs)} leftover=0 median {dt * 1e3:.1f} ms -> "
         f"{int(segs) / dt / 1e6:.2f}M rays/s on {card}; times_ms="
-        f"{[round(t * 1e3, 1) for t in times]}; compile {s_compile:.1f}s "
-        f"(overlapped); {mem}; peak_bytes_in_use={_peak_bytes()}")
+        f"{[round(t * 1e3, 1) for t in times]}; compile {s_compile:.1f}s; "
+        f"{mem}; peak_bytes_in_use={_peak_bytes()}")
 
     # the scan (reverse) pool vs the while_loop (forward) pool: same
     # estimator, RNG and per-pixel pass order
@@ -368,43 +400,54 @@ def _fwd_bwd(card, during):
 
 
 def phase_main(card):
-    import numpy as np
+    import concurrent.futures as cf
     from scheme_raytrace import scenes
     from scheme_raytrace.__main__ import main as cli
     from scheme_raytrace.config import RenderConfig
+    from scheme_raytrace.integrator import pool_fused
     from scheme_raytrace.parallel import make_mesh
     from scheme_raytrace.scene import compile_scene
 
     os.makedirs(OUT_DIR, exist_ok=True)
     edge = str(FRAME)
 
-    def during():
-        t0 = time.perf_counter()
-        _, loss, n_tr, times = _train_fused(make_mesh(1))
-        log(f"[main] train_step_fused {TRAIN_CASE.format(FRAME)} 1-device "
-            f"mesh n_iters={n_tr}: loss {loss:.6g}; step times_ms="
-            f"{[round(t * 1e3, 1) for t in times]} "
-            f"({time.perf_counter() - t0:.1f}s incl. compile) on {card}")
-        for scene, extra in (("cornell", ["--light-sampling"]),
-                             ("random", [])):
-            log(f"[main] CLI render {scene} {edge}x{edge} spp16 on {card}")
-            cli(["render", "--scene", scene, "--nx", edge, "--ny", edge,
-                 "--spp", "16", "--chunk", "16", *extra, "--out",
-                 os.path.join(OUT_DIR, f"smoke_{scene}{edge}.ppm")])
+    # set-up: the fwd+bwd program compiles in the background (minutes)
+    # while the forward programs compile and train_step_fused takes its
+    # first, compiling step; nothing is timed until it has finished
+    step, params, *fb = _fwd_bwd_setup()
+    t0 = time.perf_counter()
+    lowered = step.lower(params)        # traced here: the step choice is read
+    impl = pool_fused.LAST_STEP_IMPL["reverse"]
+    with cf.ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(_finish_compile, lowered, t0)
+        runs = [_forward("cornell", *_cornell(FRAME, FRAME, 16),
+                         physical=True),
+                _forward("cornell (row bands)",
+                         *_cornell(2 * FRAME, 2 * FRAME, 16), physical=True)]
+        spec = scenes.random_scene(seed=0)
+        runs.append(_forward(
+            "random (RTOW-final, 227 spheres)",
+            compile_scene(spec.objects, sky=spec.sky),
+            spec.camera(aspect=1.0),
+            RenderConfig(nx=FRAME, ny=FRAME, spp=16, max_depth=100)))
+        s_train, more_train = _train_fused(make_mesh(1))
+        compiled, s_compile, mem = fut.result()
 
-    _fwd_bwd(card, during)
-
-    scene, cam, config = _cornell(FRAME, FRAME, 16)
-    _forward("cornell", scene, cam, config, card, physical=True)
-    scene, cam, config = _cornell(2 * FRAME, 2 * FRAME, 16)
-    _forward("cornell (row bands)", scene, cam, config, card, physical=True)
-    spec = scenes.random_scene(seed=0)
-    scene = compile_scene(spec.objects, sky=spec.sky)
-    st = _forward("random (RTOW-final, 227 spheres)", scene,
-                  spec.camera(aspect=1.0),
-                  RenderConfig(nx=FRAME, ny=FRAME, spp=16, max_depth=100),
-                  card)
-    assert np.asarray(st.raw_sum).mean() > 0
+    _fwd_bwd_run(card, impl, compiled, s_compile, mem, params, *fb)
+    for run in runs:
+        run(card)
+    _, loss, n_tr, times = more_train(2)
+    log(f"[main] train_step_fused {TRAIN_CASE.format(FRAME)} 1-device "
+        f"mesh n_iters={n_tr}: loss {loss:.6g}; step times_ms="
+        f"{[round(t * 1e3, 1) for t in times]}; set-up {s_train:.1f}s "
+        f"(target, calibration, first step; overlapped with the fwd+bwd "
+        f"compile) on {card}")
+    # the CLI finds the library's programs in the compile cache
+    for scene, extra in (("cornell", ["--light-sampling"]), ("random", [])):
+        log(f"[main] CLI render {scene} {edge}x{edge} spp16 on {card}")
+        cli(["render", "--scene", scene, "--nx", edge, "--ny", edge,
+             "--spp", "16", "--chunk", "16", *extra, "--out",
+             os.path.join(OUT_DIR, f"smoke_{scene}{edge}.ppm")])
 
 
 # --------------------------------------------------------------------------
@@ -447,13 +490,13 @@ def phase_four(card):
 
     out = {}
     for n, mesh in ((4, mesh4), (1, mesh1)):
-        t0 = time.perf_counter()
-        out[n] = _train_fused(mesh, steps=2)
+        s_setup, more = _train_fused(mesh)
+        out[n] = more(1)
         log(f"[four] train_step_fused {TRAIN_CASE.format(FRAME)} on {n} "
             f"device(s): loss "
-            f"{out[n][1]:.8g} n_iters {out[n][2]} step times_ms="
-            f"{[round(t * 1e3, 1) for t in out[n][3]]} "
-            f"({time.perf_counter() - t0:.1f}s incl. compile) on {card}")
+            f"{out[n][1]:.8g} n_iters {out[n][2]} second step "
+            f"{out[n][3][0] * 1e3:.1f} ms (set-up {s_setup:.1f}s incl. "
+            f"compile and the first step) on {card}")
     # same start, two chained steps: compare the parameters they reach
     worst = 0.0
     for p4, p1 in zip(jax.tree.leaves(out[4][0]), jax.tree.leaves(out[1][0])):

@@ -1420,9 +1420,9 @@ def step(plan: BouncePlan, pk, gitem, px, py, fresh, alive, depth,
 # Pallas kernels on the Triton route: the SAME step traced onto lane blocks
 # ---------------------------------------------------------------------------
 
-# Lanes per program and warps per program of the bounce kernels (0 in a
-# kernel builder's arguments means these): 1-D power-of-two lane blocks,
-# one lane per thread at 128 lanes x 4 warps.
+# Lanes per program and warps per program of the bounce kernels: 1-D
+# power-of-two lane blocks, one lane per thread at 128 lanes x 4 warps.
+# Read at trace time (tools/kernel_ab.py --sweep sets them).
 BLOCK_LANES = 128
 NUM_WARPS = 4
 
@@ -1443,8 +1443,8 @@ def _block_lanes(m: int, block: int) -> int:
     return block
 
 
-def _lane_call(kernel, m, block, num_warps, whole, lanes, out_dtypes,
-               interpret, name, row_out=None):
+def _lane_call(kernel, m, whole, lanes, out_dtypes, interpret, name,
+               row_out=None):
     """pallas_call on the Triton route over an m-lane pool.
 
     `whole` arrays (pk, the texel atlas) are read whole by every program;
@@ -1453,7 +1453,7 @@ def _lane_call(kernel, m, block, num_warps, whole, lanes, out_dtypes,
     from jax.experimental import pallas as pl
     from jax.experimental.pallas import triton as plgpu
 
-    b = _block_lanes(m, block or BLOCK_LANES)
+    b = _block_lanes(m, BLOCK_LANES)
     grid = (m // b,)
     # under shard_map the outputs inherit the lane inputs' varying-mesh-
     # axes type; pallas_call requires it stated explicitly
@@ -1474,7 +1474,7 @@ def _lane_call(kernel, m, block, num_warps, whole, lanes, out_dtypes,
         out_specs=out_specs,
         out_shape=out_shape,
         compiler_params=plgpu.CompilerParams(
-            num_warps=num_warps or NUM_WARPS, num_stages=1),
+            num_warps=NUM_WARPS, num_stages=1),
         backend="triton",
         interpret=interpret,
         name=name,
@@ -1500,8 +1500,7 @@ def _step_outputs(outs):
             tuple(outs[10:13]))
 
 
-def as_pallas(plan: BouncePlan, m: int, block: int = 0, num_warps: int = 0,
-              interpret: bool = False):
+def as_pallas(plan: BouncePlan, m: int, interpret: bool = False):
     """Wrap `step` as a Pallas kernel (Triton route) over an m-lane pool.
 
     One program per block of lanes runs regen + the whole closest-hit
@@ -1512,6 +1511,7 @@ def as_pallas(plan: BouncePlan, m: int, block: int = 0, num_warps: int = 0,
     so the pool glue is oblivious to which path runs.  `interpret=True`
     runs the kernel in interpreter mode (CPU tests).
     """
+    assert fwd_kernel_covers(plan), plan
     assert m % 128 == 0, m
 
     def kernel(*refs):
@@ -1534,13 +1534,32 @@ def as_pallas(plan: BouncePlan, m: int, block: int = 0, num_warps: int = 0,
         whole = list(pk) if plan.has_image else [pk]
         dt = px.dtype
         outs = _lane_call(
-            kernel, m, block, num_warps, [_pow2_pad(w) for w in whole],
+            kernel, m, [_pow2_pad(w) for w in whole],
             _lane_inputs(gitem, px, py, fresh, alive, depth, o, d, time,
                          rad, tp),
             [dt] * 13 + [jnp.int32], interpret, "bounce_fwd")
         return (*_step_outputs(outs), outs[13] != 0)
 
     return stepfn
+
+
+# Forward-kernel routing bounds: the exotic groups are unrolled in the
+# kernel (one copy of the medium / klein march / bezier Newton code per
+# prim), so kernel size and compile time grow with their counts.  Plans
+# past a bound run the jnp step (a bezier chain from points.load_bezier_chain
+# has one bezier per segment).  Carried over from the earlier accelerator;
+# compile time at the bounds is checked by chip_smoke.py on the card.
+KERNEL_MAX_MEDIA = 16
+KERNEL_MAX_KLEINS = 2
+KERNEL_MAX_BEZIERS = 8
+
+
+def fwd_kernel_covers(plan: BouncePlan) -> bool:
+    """True when the forward kernel runs this plan (decided from the
+    plan's counts, never from a compile attempt)."""
+    return (plan.n_media <= KERNEL_MAX_MEDIA
+            and plan.n_kleins <= KERNEL_MAX_KLEINS
+            and plan.n_beziers <= KERNEL_MAX_BEZIERS)
 
 
 def vjp_kernel_covers(plan: BouncePlan) -> bool:
@@ -1551,12 +1570,12 @@ def vjp_kernel_covers(plan: BouncePlan) -> bool:
     sweep, no slim sphere sweep, no texel gather), and the transposed
     step may hold no loop with per-iteration residuals (the klein DE
     gradient loop and the bezier seed loop would need them)."""
-    return (not plan.has_image and not plan.n_kleins and not plan.n_beziers
+    return (fwd_kernel_covers(plan) and not plan.has_image
+            and not plan.n_kleins and not plan.n_beziers
             and plan.n_rects <= UNROLL_MAX and plan.n_spheres <= UNROLL_MAX)
 
 
-def as_pallas_bwd(plan: BouncePlan, m: int, block: int = 0,
-                  num_warps: int = 0, interpret: bool = False):
+def as_pallas_bwd(plan: BouncePlan, m: int, interpret: bool = False):
     """Backward kernel for `step`: recompute + transpose in ONE kernel.
 
     Given the step's INPUTS and the cotangents of its five float outputs
@@ -1593,7 +1612,7 @@ def as_pallas_bwd(plan: BouncePlan, m: int, block: int = 0,
               ct_o, ct_d, ct_time, ct_rad, ct_tp):
         dt = px.dtype
         outs = _lane_call(
-            kernel, m, block, num_warps, [_pow2_pad(pk)],
+            kernel, m, [_pow2_pad(pk)],
             _lane_inputs(gitem, px, py, fresh, alive, depth, o, d, time,
                          rad, tp) + [*ct_o, *ct_d, ct_time, *ct_rad, *ct_tp],
             [dt] * 13, interpret, "bounce_bwd", row_out=(_pow2(P), dt))
@@ -1603,8 +1622,7 @@ def as_pallas_bwd(plan: BouncePlan, m: int, block: int = 0,
     return bwdfn
 
 
-def as_pallas_vjp(plan: BouncePlan, m: int, block: int = 0,
-                  num_warps: int = 0, interpret: bool = False):
+def as_pallas_vjp(plan: BouncePlan, m: int, interpret: bool = False):
     """`step` with a jax.custom_vjp: kernel forward AND kernel backward.
 
     The diff pool's scan differentiates through this step with residuals
@@ -1612,8 +1630,8 @@ def as_pallas_vjp(plan: BouncePlan, m: int, block: int = 0,
     Same signature as `step`; grads flow to pk / o / d / time / rad / tp;
     px / py get zeros (pixel coordinates), int/bool lanes get float0.
     """
-    fwd = as_pallas(plan, m, block, num_warps, interpret)
-    bwd = as_pallas_bwd(plan, m, block, num_warps, interpret)
+    fwd = as_pallas(plan, m, interpret)
+    bwd = as_pallas_bwd(plan, m, interpret)
 
     @jax.custom_vjp
     def cv(pk, o, d, time, rad, tp, px, py, gitem, fresh, alive, depth):

@@ -109,17 +109,18 @@ def choose_group(n_local, pool_cap, item_stride, plan) -> int:
 def choose_step(plan, m, config, reverse=False):
     """(step function, name) for one pool: chosen by platform.
 
-    On a GPU the Pallas kernels run (forward `as_pallas`; reverse
-    `as_pallas_vjp` where bounce.vjp_kernel_covers the plan, else the jnp
-    step); elsewhere the jnp step.  config.use_pallas forces either way.
-    A kernel that fails to compile is an error, never a silent fallback."""
+    On a GPU the Pallas kernels run (forward `as_pallas` where
+    bounce.fwd_kernel_covers the plan; reverse `as_pallas_vjp` where
+    bounce.vjp_kernel_covers it), else the jnp step; elsewhere the jnp
+    step.  config.use_pallas forces either way within those bounds.  A
+    kernel that fails to compile is an error, never a silent fallback."""
     use_kernel = (jax.default_backend() == "gpu" if config.use_pallas is None
                   else config.use_pallas)
     if reverse:
         if use_kernel and bounce.vjp_kernel_covers(plan):
             return bounce.as_pallas_vjp(plan, m), "pallas-vjp"
         return bounce.step, "jnp"
-    if use_kernel:
+    if use_kernel and bounce.fwd_kernel_covers(plan):
         return bounce.as_pallas(plan, m), "pallas"
     return bounce.step, "jnp"
 

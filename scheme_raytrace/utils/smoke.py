@@ -93,6 +93,30 @@ def exotic_scene():
     ], scenes.default_camera(), "gradient")
 
 
+def bounds_scene():
+    """The largest plan the forward kernel runs: bounce.KERNEL_MAX_MEDIA
+    media, KERNEL_MAX_KLEINS kleins and KERNEL_MAX_BEZIERS beziers, each
+    unrolled in the kernel."""
+    from .. import scenes
+    from ..integrator import bounce
+    from ..scene import objects as ob
+    objs = [ob.Sphere((0, -100.5, -1), 100, ob.Lambertian((0.5, 0.5, 0.5)))]
+    for i in range(bounce.KERNEL_MAX_MEDIA):
+        objs.append(ob.ConstantMedium(
+            ob.Sphere((-1.5 + (i % 4), 0.2 * (i // 4), -1.5), 0.2,
+                      ob.Lambertian((1, 1, 1))), 0.5 + 0.1 * i,
+            (0.9, 0.8, 0.7)))
+    for i in range(bounce.KERNEL_MAX_KLEINS):
+        objs.append(ob.Klein((-2 + 4 * i, 2, 0),
+                             ob.Lambertian((0.65, 0.05, 0.05))))
+    for i in range(bounce.KERNEL_MAX_BEZIERS):
+        z = -2.5 + 0.2 * i
+        cp = np.array([[-1, 0, z], [-0.3, 1, z], [0.3, -1, z], [1, 0, z]],
+                      float)
+        objs.append(ob.Bezier(cp, 0.1, ob.Lambertian((0.7, 0.4, 0.2))))
+    return scenes.SceneSpec(objs, scenes.default_camera(), "gradient")
+
+
 def random_lanes(m, seed, lo, hi, nx, ny):
     """A pool's lane inputs for one `bounce.step` call: half the lanes
     fresh (camera regen), origins uniform in the box [lo, hi]^3, unit

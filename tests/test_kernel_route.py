@@ -1,6 +1,6 @@
 """How the pool picks and shapes the bounce kernels, on the CPU: the step
 choice by platform, the power-of-two padding and lane blocks the Triton
-route needs, which plans the custom-VJP kernel covers, and the
+route needs, which plans the forward and custom-VJP kernels cover, and the
 multi-process start-up.  The compiled forward kernel is checked by the
 `gpu` tests, which skip without a card; the compiled custom-VJP kernel
 takes minutes to compile and is checked by chip_smoke.py."""
@@ -57,6 +57,44 @@ def test_reverse_falls_back_to_jnp_where_vjp_kernel_does_not_cover(
     cfg = RenderConfig()
     assert pool_fused.choose_step(plan, 256, cfg, reverse=True)[1] == "jnp"
     assert pool_fused.choose_step(plan, 256, cfg)[1] == "pallas"
+
+
+def _bezier_chain():
+    # a points.load_bezier_chain scene: one bezier per polyline segment
+    from scheme_raytrace import points
+    from scheme_raytrace.scene import objects as ob
+    t = np.linspace(0.0, 6.0, 40)
+    pts = np.stack([np.cos(t), np.sin(t), 0.2 * t - 2.0], axis=1)
+    objs = points.bezier_objs(points.points_to_bezier_cps(pts), 0.05,
+                              ob.Lambertian((0.7, 0.4, 0.2)))
+    return scenes.SceneSpec(objs, scenes.default_camera(), "gradient")
+
+
+@pytest.mark.parametrize("field", ["n_media", "n_kleins", "n_beziers"])
+def test_plans_past_the_kernel_bounds_run_the_jnp_step(monkeypatch, field):
+    import dataclasses
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    _, _, plan = _plan(smoke.bounds_scene)
+    assert bounce.fwd_kernel_covers(plan)
+    assert pool_fused.choose_step(plan, 256, RenderConfig())[1] == "pallas"
+    past = dataclasses.replace(plan, **{field: getattr(plan, field) + 1})
+    assert not bounce.fwd_kernel_covers(past)
+    assert not bounce.vjp_kernel_covers(past)
+    for reverse in (False, True):
+        for use_pallas in (None, True):
+            step, impl = pool_fused.choose_step(
+                past, 256, RenderConfig(use_pallas=use_pallas),
+                reverse=reverse)
+            assert impl == "jnp" and step is bounce.step
+    with pytest.raises(AssertionError):
+        bounce.as_pallas(past, 256)
+
+
+def test_bezier_chain_scene_runs_the_jnp_step(monkeypatch):
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    _, _, plan = _plan(_bezier_chain)
+    assert plan.n_beziers > bounce.KERNEL_MAX_BEZIERS
+    assert pool_fused.choose_step(plan, 256, RenderConfig())[1] == "jnp"
 
 
 @pytest.mark.parametrize("spec_fn,covered", [
@@ -130,9 +168,9 @@ def test_compiled_kernel_matches_jnp_step(spec_fn, ls, lo, hi):
     (scenes.cornell_box, True), (lambda: scenes.random_scene(seed=0), False),
     (scenes.textured_scene, False), (scenes.cornell_smoke, True),
     (scenes.cornell_klein, True), (scenes.cornell_bezier, True),
-    (smoke.exotic_scene, False)],
+    (smoke.exotic_scene, False), (smoke.bounds_scene, False)],
     ids=["cornell", "rtow_final", "textured", "cornell_smoke",
-         "cornell_klein", "cornell_bezier", "exotic"])
+         "cornell_klein", "cornell_bezier", "exotic", "at_bounds"])
 def test_forward_kernel_lowers_to_triton(spec_fn, ls):
     # lowering for CUDA runs the Triton route's lowering rules on the CPU:
     # an op the route cannot lower fails here, not first on the card
